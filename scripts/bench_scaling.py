@@ -1,7 +1,7 @@
 """Multi-device scaling efficiency of the sharded GBP solver.
 
 Measures sweeps/sec at 1, 2, 4, ... devices over whatever mesh is
-available. On a real TPU slice this reports the ICI-scaling efficiency
+available. On a multi-GPU host this reports the scaling efficiency
 (BASELINE target: >= 0.7 at N >= 2); on a CPU host it exercises the same
 SPMD program over a virtual mesh (set
 XLA_FLAGS=--xla_force_host_platform_device_count=8 GBP_PLATFORM=cpu), which
@@ -16,19 +16,19 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if os.environ.get("GBP_PLATFORM"):
+if os.environ.get("GBP_PLATFORM") == "cpu":
     import jax
-    jax.config.update("jax_platforms", os.environ["GBP_PLATFORM"])
+    jax.config.update("jax_platforms", "cpu")
 
 import jax
 import numpy as np
 
-from gbp_poplar_tpu.config import GBPConfig
-from gbp_poplar_tpu.core import build_graph, init_state
-from gbp_poplar_tpu.parallel import (
+from gbp_poplar.config import GBPConfig
+from gbp_poplar.core import build_graph, init_state
+from gbp_poplar.parallel import (
     make_map_sharded_solver, make_mesh, make_sharded_solver,
 )
-from gbp_poplar_tpu.utils import balio
+from gbp_poplar.utils import balio
 
 MODE = os.environ.get("GBP_SHARD_MODE", "edges")   # edges | map
 

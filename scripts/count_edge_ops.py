@@ -1,20 +1,14 @@
-"""Exact per-edge VPU op count of the sweep body — the roofline, quantified.
+"""Exact per-edge elementwise op count of the sweep body.
 
-Traces ``core.gbp.edge_math`` (the single source of truth for the sweep,
-shared by the XLA oracle and both Pallas kernels) with ``jax.make_jaxpr``
-and tallies every elementwise primitive, weighted by its output element
-count per edge. This replaces the hand-waved "~2,500 VPU ops per edge"
-estimate in docs/PERFORMANCE.md with a measured number, and prints the
-breakdown by section (mean solves / relinearisation / cam-side cavity /
-lmk-side cavity) so kernel work can be targeted and "done" quantified
-(the reference's equivalent per-tile work is fixed by ba/gbp_codelets.cpp).
+Traces ``core.gbp.edge_math`` (the single source of truth for the sweep)
+with ``jax.make_jaxpr`` and tallies every elementwise primitive, weighted
+by its output element count per edge, with a breakdown by primitive, so
+kernel work can be targeted and "done" quantified against a roofline (the
+reference's equivalent per-tile work is fixed by ba/gbp_codelets.cpp).
+Transcendental-class ops (sqrt, rsqrt, sin, cos, div, exp, log) are
+tallied separately and charged at TRANS_COST plain ops each.
 
-VPU model (TPU v5e): 8 sublanes x 128 lanes x 1 fp32 op/cycle at 940 MHz
-= 0.963 T elementwise ops/s. Transcendental-class ops (sqrt, rsqrt, sin,
-cos, div, exp, log) retire slower; they are tallied separately and charged
-at TRANS_COST lanes-equivalents each (a conservative 4x).
-
-Usage: python scripts/count_edge_ops.py [--premu] [--snavely]
+Usage: python scripts/count_edge_ops.py [--snavely] [--detail]
 """
 
 from __future__ import annotations
@@ -30,10 +24,10 @@ import jax.numpy as jnp
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 jax.config.update("jax_platforms", "cpu")
 
-from gbp_poplar_tpu.config import GBPConfig  # noqa: E402
-from gbp_poplar_tpu.core import gbp  # noqa: E402
+from gbp_poplar.config import GBPConfig  # noqa: E402
+from gbp_poplar.core import gbp  # noqa: E402
 
-# elementwise primitives counted as 1 VPU op per output element
+# elementwise primitives counted as 1 op per output element
 _ONE = {
     "add", "sub", "mul", "neg", "max", "min", "and", "or", "not", "xor",
     "select_n", "eq", "ne", "ge", "gt", "le", "lt", "abs", "sign",
@@ -48,7 +42,6 @@ _FREE = {"concatenate", "slice", "reshape", "broadcast_in_dim", "squeeze",
          "stop_gradient", "dynamic_slice", "rev"}
 
 TRANS_COST = 4
-V5E_VPU_OPS = 8 * 128 * 0.940e9  # elementwise fp32 ops/s
 
 
 def tally(jaxpr, n_edges: int) -> tuple[Counter, Counter]:
@@ -95,33 +88,31 @@ def tally(jaxpr, n_edges: int) -> tuple[Counter, Counter]:
     return walk(jaxpr)
 
 
-def edge_math_args(e: int, snavely: bool, premu: bool):
+# edge_math's per-edge operands in order, with their row counts
+_EDGE_MATH_ARGS = (
+    ("bc", 27), ("bl", 9), ("meas", 2), ("meas_var", 1),
+    ("f_eta_c", 6), ("f_eta_l", 3), ("f_lam_cc", 21), ("f_lam_cl", 18),
+    ("f_lam_ll", 6), ("msg_c_eta", 6), ("msg_c_lam", 21), ("msg_l_eta", 3),
+    ("msg_l_lam", 6), ("damping", 1), ("damping_count", 1), ("mu", 9),
+    ("lin_mu", 9), ("robust", 1), ("active", 1),
+)
+
+
+def edge_math_args(e: int, snavely: bool):
     f32 = jnp.float32
-    z = lambda n: jnp.zeros((n, e), f32)  # noqa: E731
-    args = dict(
-        bc=z(27), bl=z(9), meas=z(2), meas_var=jnp.ones((1, e), f32),
-        f_eta_c=z(6), f_eta_l=z(3), f_lam_cc=z(21), f_lam_cl=z(18),
-        f_lam_ll=z(6),
-        msg_c_eta=z(6), msg_c_lam=z(21), msg_l_eta=z(3), msg_l_lam=z(6),
-        damping=z(1), damping_count=jnp.zeros((1, e), jnp.int32),
-        mu=z(9), lin_mu=z(9), robust=jnp.zeros((1, e), jnp.uint8),
-        active=jnp.ones((1, e), jnp.uint8),
-    )
+    ints = {"damping_count": jnp.int32, "robust": jnp.bool_,
+            "active": jnp.int32}
+    args = [jnp.zeros((n, e), ints.get(name, f32))
+            for name, n in _EDGE_MATH_ARGS]
     k = jnp.eye(3, dtype=f32)
-    intr = z(3) if snavely else None
-    pm = z(10) if premu else None
-    return args, k, intr, pm
+    intr = jnp.zeros((3, e), f32) if snavely else None
+    return args, k, intr
 
 
-def count(cfg: GBPConfig, e: int, snavely: bool, premu: bool):
-    args, k, intr, pm = edge_math_args(e, snavely, premu)
-
-    def fn(*vals):
-        if pm is None:
-            return gbp.edge_math(*vals, k, cfg, intr=intr)
-        return gbp.edge_math(*vals, k, cfg, intr=intr, premu=pm)
-
-    jx = jax.make_jaxpr(fn)(*args.values())
+def count(cfg: GBPConfig, e: int, snavely: bool):
+    args, k, intr = edge_math_args(e, snavely)
+    jx = jax.make_jaxpr(
+        lambda *vals: gbp.edge_math(*vals, k, cfg, intr=intr))(*args)
     return tally(jx.jaxpr, e)
 
 
@@ -129,11 +120,8 @@ def report(label: str, ones: Counter, trans: Counter):
     n1 = sum(ones.values())
     nt = sum(trans.values())
     eff = n1 + TRANS_COST * nt
-    us_per_m = 1.09e6 * eff / V5E_VPU_OPS * 1e6 / 1000  # ms at 1.09M edges
     print(f"{label:34s} {n1:7.0f} one-class + {nt:5.1f} trans "
-          f"= {eff:7.0f} eff ops/edge | v5e VPU bound: "
-          f"{13312 * eff / V5E_VPU_OPS * 1e6:6.1f} us @13.3k edges, "
-          f"{us_per_m:6.2f} ms @1.09M")
+          f"= {eff:7.0f} eff ops/edge")
     return eff
 
 
@@ -145,23 +133,13 @@ def main():
     args = ap.parse_args()
 
     cfg = GBPConfig()
-    e = 1024
-
-    for premu in (False, True):
-        label = ("edge_math (premu: table-gathered means)" if premu
-                 else "edge_math (per-edge mean solves)")
-        try:
-            ones, trans = count(cfg, e, args.snavely, premu)
-        except TypeError:
-            print(f"{label}: premu not supported by this edge_math")
-            continue
-        report(label, ones, trans)
-        if args.detail:
-            for name, v in sorted(ones.items(), key=lambda kv: -kv[1]):
-                print(f"    {name:24s} {v:8.1f}")
-            for name, v in sorted(trans.items(), key=lambda kv: -kv[1]):
-                print(f"    [trans] {name:16s} {v:8.1f}")
-
+    ones, trans = count(cfg, 1024, args.snavely)
+    report("edge_math", ones, trans)
+    if args.detail:
+        for name, v in sorted(ones.items(), key=lambda kv: -kv[1]):
+            print(f"    {name:24s} {v:8.1f}")
+        for name, v in sorted(trans.items(), key=lambda kv: -kv[1]):
+            print(f"    [trans] {name:16s} {v:8.1f}")
 
 if __name__ == "__main__":
     main()

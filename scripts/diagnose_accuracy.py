@@ -13,7 +13,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from gbp_poplar_tpu.drivers.common import maybe_force_platform  # noqa: E402
+from gbp_poplar.drivers.common import maybe_force_platform  # noqa: E402
 
 maybe_force_platform()   # honour GBP_PLATFORM=cpu for parallel experiments
 
@@ -21,10 +21,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gbp_poplar_tpu.config import GBPConfig
-from gbp_poplar_tpu.core import build_graph, gauss_newton, gbp, init_state
-from gbp_poplar_tpu.ops import planes as pl
-from gbp_poplar_tpu.utils import balio, evaluation
+from gbp_poplar.config import GBPConfig
+from gbp_poplar.core import build_graph, gauss_newton, gbp, init_state
+from gbp_poplar.ops import planes as pl
+from gbp_poplar.utils import balio, evaluation
 
 seq = sys.argv[1] if len(sys.argv) > 1 else "fr1desk"
 n_iters = int(sys.argv[2]) if len(sys.argv) > 2 else 1000
@@ -112,11 +112,11 @@ for thr in (10.0, 50.0):
     print(f"  edges with res>{thr}: {m.sum()} "
           f"({res[m].sum() / e:.3f} px of the mean)")
 
-# GN comparison (cold start needs generous LM iterations on TPU fp32)
+# GN comparison (a cold start needs generous LM iterations in fp32)
 res_gn = gauss_newton.solve_problem(prob, cfg, n_lm_iters=60)
 gn_cam = np.asarray(res_gn.cam)
 gn_lmk = np.asarray(res_gn.lmk)
-from gbp_poplar_tpu.ops import projection as proj
+from gbp_poplar.ops import projection as proj
 r_gn = np.asarray(graph.meas).T[:e] - np.asarray(proj.project(
     jnp.asarray(gn_cam)[cam_ids], jnp.asarray(gn_lmk)[lmk_ids], graph.k))
 res_gn_e = np.linalg.norm(r_gn, axis=-1)
@@ -135,16 +135,15 @@ print(f"\nGN: reproj {float(res_gn.reproj_err[-1]):.4f} px; "
       f"ATE(GBP,GN) {ate:.5f} m")
 
 # --- MAP-cost comparison: are the two solvers in the same basin? ---
-import dataclasses
-from gbp_poplar_tpu.utils import priors as priors_lib
-g1 = build_graph(prob, dataclasses.replace(cfg, edge_pad_multiple=1))
+from gbp_poplar.utils import priors as priors_lib
+g1 = build_graph(prob, cfg)
 cam_lam0, lmk_lam0 = priors_lib.prior_lambdas(prob, cfg.meas_var)
 pri = gauss_newton.annealed_priors(
     g1, jnp.asarray(prob.cam_means), jnp.asarray(prob.lmk_means),
     cam_lam0, lmk_lam0, cfg)
 
 def map_cost(cam, lmk):
-    from gbp_poplar_tpu.ops import projection as pj
+    from gbp_poplar.ops import projection as pj
     r = g1.meas.T - pj.project(jnp.asarray(cam)[g1.cam_idx],
                                jnp.asarray(lmk)[g1.lmk_idx], g1.k)
     return (float(gauss_newton._robust_cost(r, g1.meas_var, cfg.huber_nstds))
@@ -152,7 +151,7 @@ def map_cost(cam, lmk):
                                              jnp.asarray(lmk), pri)))
 
 def cost_split(cam, lmk):
-    from gbp_poplar_tpu.ops import projection as pj
+    from gbp_poplar.ops import projection as pj
     r = g1.meas.T - pj.project(jnp.asarray(cam)[g1.cam_idx],
                                jnp.asarray(lmk)[g1.lmk_idx], g1.k)
     rob = float(gauss_newton._robust_cost(r, g1.meas_var, cfg.huber_nstds))

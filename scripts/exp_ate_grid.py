@@ -17,7 +17,7 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from gbp_poplar_tpu.drivers.common import maybe_force_platform  # noqa: E402
+from gbp_poplar.drivers.common import maybe_force_platform  # noqa: E402
 
 maybe_force_platform()
 
@@ -25,10 +25,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gbp_poplar_tpu.config import GBPConfig
-from gbp_poplar_tpu.core import build_graph, gauss_newton, gbp, init_state
-from gbp_poplar_tpu.utils import balio, evaluation
-from gbp_poplar_tpu.utils import priors as priors_lib
+from gbp_poplar.config import GBPConfig
+from gbp_poplar.core import build_graph, gauss_newton, gbp, init_state
+from gbp_poplar.utils import balio, evaluation
+from gbp_poplar.utils import priors as priors_lib
 
 
 def parse_spec(spec: str) -> dict:
@@ -56,14 +56,14 @@ def main():
     gn_cam = np.asarray(res_gn.cam)
     gn_lmk = np.asarray(res_gn.lmk)
 
-    g1 = build_graph(prob, dataclasses.replace(base, edge_pad_multiple=1))
+    g1 = build_graph(prob, base)
     cam_lam0, lmk_lam0 = priors_lib.prior_lambdas(prob, base.meas_var)
     pri = gauss_newton.annealed_priors(
         g1, jnp.asarray(prob.cam_means), jnp.asarray(prob.lmk_means),
         cam_lam0, lmk_lam0, base)
 
     def map_cost(cam, lmk):
-        from gbp_poplar_tpu.ops import projection as pj
+        from gbp_poplar.ops import projection as pj
         r = g1.meas.T - pj.project(jnp.asarray(cam)[g1.cam_idx],
                                    jnp.asarray(lmk)[g1.lmk_idx], g1.k)
         return (float(gauss_newton._robust_cost(r, g1.meas_var,

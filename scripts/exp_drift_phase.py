@@ -18,7 +18,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from gbp_poplar_tpu.drivers.common import maybe_force_platform  # noqa: E402
+from gbp_poplar.drivers.common import maybe_force_platform  # noqa: E402
 
 maybe_force_platform()
 
@@ -26,10 +26,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gbp_poplar_tpu.config import GBPConfig
-from gbp_poplar_tpu.core import build_graph, gauss_newton, gbp, init_state
-from gbp_poplar_tpu.utils import balio, evaluation
-from gbp_poplar_tpu.utils import priors as priors_lib
+from gbp_poplar.config import GBPConfig
+from gbp_poplar.core import build_graph, gauss_newton, gbp, init_state
+from gbp_poplar.utils import balio, evaluation
+from gbp_poplar.utils import priors as priors_lib
 
 seq = sys.argv[1] if len(sys.argv) > 1 else "fr1desk"
 n_total = int(sys.argv[2]) if len(sys.argv) > 2 else 1500
@@ -56,7 +56,7 @@ print(f"{seq}: {prob.n_keyframes} kf / {prob.n_points} lmk / "
 # GN baseline + annealed priors for the MAP cost (built once)
 res_gn = gauss_newton.solve_problem(prob, cfg_on, n_lm_iters=60)
 gn_cam = np.asarray(res_gn.cam)
-g1 = build_graph(prob, dataclasses.replace(cfg_on, edge_pad_multiple=1))
+g1 = build_graph(prob, cfg_on)
 cam_lam0, lmk_lam0 = priors_lib.prior_lambdas(prob, cfg_on.meas_var)
 pri = gauss_newton.annealed_priors(
     g1, jnp.asarray(prob.cam_means), jnp.asarray(prob.lmk_means),
@@ -64,7 +64,7 @@ pri = gauss_newton.annealed_priors(
 
 
 def map_cost(cam, lmk):
-    from gbp_poplar_tpu.ops import projection as pj
+    from gbp_poplar.ops import projection as pj
     r = g1.meas.T - pj.project(jnp.asarray(cam)[g1.cam_idx],
                                jnp.asarray(lmk)[g1.lmk_idx], g1.k)
     return (float(gauss_newton._robust_cost(r, g1.meas_var, cfg_on.huber_nstds))

@@ -3,16 +3,16 @@
     python scripts/memory_ledger.py [edges_in_millions] [--production]
 
 Enumerates every live buffer at a given synthetic-Venice-density shape
-(5 obs/landmark) and answers, buffer by buffer, where the single-chip
-capacity wall is (round-4 measurement: 8M edges runs, 12M hits
-RESOURCE_EXHAUSTED on the 15.75 GB v5e):
+(5 obs/landmark) and answers, buffer by buffer, where the single-card
+capacity wall is, against the device's own limit
+(``device.memory_stats()["bytes_limit"]``):
 
  1. the STATE pytree (per-edge planes + beliefs + priors) by field,
- 2. the GRAPH pytree (static planes, indices, window aux) by field,
+ 2. the GRAPH pytree (static planes and indices) by field,
  3. the compiled hot program's own accounting (XLA memory_analysis of the
     jitted run_gbp step: argument/output/temp/peak bytes) — temps cover
-    the belief tables, cell grids, packed carry and pipeline buffers that
-    the pytrees don't show.
+    the intermediates that the pytrees don't show,
+ 4. the device's limit (``memory_stats()["bytes_limit"]``).
 
 The per-field tallies are exact (shape x dtype of the arrays actually
 resident); the XLA analysis is the compiler's own allocation plan for the
@@ -29,22 +29,16 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 import numpy as np
 
-from gbp_poplar_tpu.config import GBPConfig
-from gbp_poplar_tpu.core import build_graph, init_state, gbp
-from gbp_poplar_tpu.utils import balio
+from gbp_poplar.config import GBPConfig
+from gbp_poplar.core import build_graph, init_state, gbp
+from gbp_poplar.utils import balio
 
 
 def _leaf_bytes(nt) -> list:
     rows = []
     for f in type(nt)._fields:
         v = getattr(nt, f)
-        if v is None:
-            continue
-        if hasattr(v, "base"):          # BlockedIndex aux
-            n = sum(int(np.prod(a.shape)) * a.dtype.itemsize
-                    for a in (v.base, v.visited) if a is not None)
-            rows.append((f, "BlockedIndex", n))
-        elif hasattr(v, "shape"):
+        if v is not None:
             rows.append((f, f"{v.dtype}{list(v.shape)}",
                          int(np.prod(v.shape)) * v.dtype.itemsize))
     return rows
@@ -72,8 +66,7 @@ def main():
     graph = build_graph(prob, cfg)
     state = init_state(prob, cfg)
     e = graph.n_edges
-    print(f"shape: {c} kf / {l} lmk / {obs} obs = {e} edges "
-          f"({graph.cam_idx.shape[0]} padded)")
+    print(f"shape: {c} kf / {l} lmk / {obs} obs = {e} edges")
 
     g_total = _print_rows("GBPGraph (static)", _leaf_bytes(graph))
     s_total = _print_rows("GBPState (carried)", _leaf_bytes(state))
@@ -82,8 +75,8 @@ def main():
 
     # donate the state exactly as the drivers do (drivers/ba._SingleChip):
     # the output state writes into the input buffers, so the plan below is
-    # the driver-realistic one (without donation the un-aliased 8M peak
-    # was 13.36 GiB: args 4.54 + outputs 4.54 + temps 4.87)
+    # the driver-realistic one (without donation arguments and outputs
+    # are both held)
     if production:
         run = jax.jit(lambda s: gbp.run_gbp(
             s, graph, cfg, 8, with_diagnostics=False,
@@ -106,6 +99,9 @@ def main():
             print(f"  {attr:32s} {v / 2**30:9.3f} GiB")
     # arguments alias outputs for the carried state (donated in the scan);
     # peak ~= args + temps when aliasing holds
+    limit = (jax.devices()[0].memory_stats() or {}).get("bytes_limit")
+    print(f"  {'device bytes_limit':32s} "
+          + (f"{limit / 2**30:9.3f} GiB" if limit else "not reported"))
     print("\n(initialise must be a separate dispatch before this step; "
           "its build temporaries do not survive into the solve "
           "allocation plan above)")

@@ -23,9 +23,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 import numpy as np
 
-from gbp_poplar_tpu.config import GBPConfig
-from gbp_poplar_tpu.core import build_graph, gbp, init_state
-from gbp_poplar_tpu.utils import balio
+from gbp_poplar.config import GBPConfig
+from gbp_poplar.core import build_graph, gbp, init_state
+from gbp_poplar.utils import balio
 
 
 def parse_variant(spec: str) -> tuple[str, GBPConfig]:

@@ -14,10 +14,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 import numpy as np
 
-from gbp_poplar_tpu.config import GBPConfig
-from gbp_poplar_tpu.core import build_graph, init_state, gbp, slam
-from gbp_poplar_tpu.core import gauss_newton as gn
-from gbp_poplar_tpu.utils import analysis, balio, evaluation, flags as flags_lib
+from gbp_poplar.config import GBPConfig
+from gbp_poplar.core import build_graph, init_state, gbp, slam
+from gbp_poplar.core import gauss_newton as gn
+from gbp_poplar.utils import analysis, balio, evaluation, flags as flags_lib
 
 
 def run_sequence(seq: str, n_iters: int = 1000):

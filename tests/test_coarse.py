@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gbp_poplar_tpu.config import GBPConfig
-from gbp_poplar_tpu.core import build_graph, coarse, gauss_newton, gbp, init_state
-from gbp_poplar_tpu.ops import lie, projection
-from gbp_poplar_tpu.utils import balio, priors as priors_lib
+from gbp_poplar.config import GBPConfig
+from gbp_poplar.core import build_graph, coarse, gauss_newton, gbp, init_state
+from gbp_poplar.ops import lie, projection
+from gbp_poplar.utils import balio, priors as priors_lib
 
 
 @pytest.fixture(scope="module")
@@ -56,7 +56,7 @@ def test_zero_increment_at_gn_optimum(prob):
     """At the GN/LM solution of the same objective, the coarse gradient is
     (numerically) zero, so the increment must vanish — the corrector cannot
     move a converged solver."""
-    cfg = GBPConfig(coarse_groups=3, edge_pad_multiple=64)
+    cfg = GBPConfig(coarse_groups=3)
     graph = build_graph(prob, cfg)
     res = gauss_newton.solve_problem(prob, cfg, n_lm_iters=40)
     state = init_state(prob, cfg)
@@ -79,7 +79,7 @@ def test_zero_increment_at_gn_optimum(prob):
 
 def test_coarse_step_monotone_cost(prob):
     """_coarse_step never increases the on-device MAP cost."""
-    cfg = GBPConfig(coarse_groups=3, edge_pad_multiple=64, accel_every=0)
+    cfg = GBPConfig(coarse_groups=3, accel_every=0)
     graph = build_graph(prob, cfg)
     state = init_state(prob, cfg)
     state = gbp.initialise(state, graph, cfg)
@@ -95,7 +95,7 @@ def test_degenerate_edge_does_not_poison_increment(prob):
     """One edge whose landmark grazes the camera plane (|z| ~ 0, Jacobian
     overflows to inf) must drop only ITSELF from the reduced system — not
     NaN-poison the assembly and zero the entire correction."""
-    cfg = GBPConfig(coarse_groups=3, edge_pad_multiple=64)
+    cfg = GBPConfig(coarse_groups=3)
     graph = build_graph(prob, cfg)
     state = init_state(prob, cfg)
     state = gbp.initialise(state, graph, cfg)

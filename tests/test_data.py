@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from gbp_poplar_tpu.config import GBPConfig
-from gbp_poplar_tpu.utils import balio, flags as flags_lib, priors
+from gbp_poplar.config import GBPConfig
+from gbp_poplar.utils import balio, flags as flags_lib, priors
 
 from conftest import requires_sequences
 
@@ -50,7 +50,7 @@ def test_prior_lambdas_positive(synthetic):
 def test_prior_lambda_matches_bruteforce(synthetic):
     """Vectorised segment-max prior equals the reference's O((C+L)E) scan."""
     import jax.numpy as jnp
-    from gbp_poplar_tpu.ops import projection
+    from gbp_poplar.ops import projection
     cam_lam, lmk_lam = priors.prior_lambdas(synthetic, meas_var=4.0)
     k = jnp.asarray(synthetic.k, jnp.float32)
     for c in [0, synthetic.n_keyframes - 1]:
@@ -109,7 +109,7 @@ def test_av_depth_init(synthetic):
 
 
 def test_init_noise_preserves_anchors(synthetic):
-    from gbp_poplar_tpu.config import InitConfig
+    from gbp_poplar.config import InitConfig
     cfg = InitConfig(trans_noise=0.1, rot_noise=1.0, seed=1)
     out = priors.apply_init_noise(synthetic, cfg)
     np.testing.assert_allclose(out.cam_means[:2], synthetic.cam_means[:2])
@@ -122,7 +122,7 @@ def test_load_compressed_bal(tmp_path):
     files) and autodetection still works through the compression."""
     import bz2
 
-    from gbp_poplar_tpu.utils.balio import save_bal, synthetic_problem
+    from gbp_poplar.utils.balio import save_bal, synthetic_problem
 
     prob = synthetic_problem(n_keyframes=4, n_points=20, seed=2)
     plain = tmp_path / "seq.txt"

@@ -12,7 +12,7 @@ import sys
 import numpy as np
 import pytest
 
-from gbp_poplar_tpu.utils import balio
+from gbp_poplar.utils import balio
 
 _ENV = dict(os.environ, GBP_PLATFORM="cpu",
             XLA_FLAGS=os.environ.get("XLA_FLAGS", ""))
@@ -39,7 +39,7 @@ def _run(mod, *args):
 def test_ba_cli_end_to_end(tiny_bal, tmp_path):
     traj = str(tmp_path / "traj.txt")
     ckpt = str(tmp_path / "ckpt.npz")
-    r = _run("gbp_poplar_tpu.drivers.ba",
+    r = _run("gbp_poplar.drivers.ba",
              "--bal_file", tiny_bal, "--n_iters", "40",
              "--print_every", "20", "--save_traj", traj,
              "--checkpoint", ckpt, "--gn_check")
@@ -60,10 +60,10 @@ def test_ba_cli_end_to_end(tiny_bal, tmp_path):
 
 def test_ba_cli_resume(tiny_bal, tmp_path):
     ckpt = str(tmp_path / "c.npz")
-    r1 = _run("gbp_poplar_tpu.drivers.ba", "--bal_file", tiny_bal,
+    r1 = _run("gbp_poplar.drivers.ba", "--bal_file", tiny_bal,
               "--n_iters", "20", "--checkpoint", ckpt)
     assert r1.returncode == 0, r1.stderr[-2000:]
-    r2 = _run("gbp_poplar_tpu.drivers.ba", "--bal_file", tiny_bal,
+    r2 = _run("gbp_poplar.drivers.ba", "--bal_file", tiny_bal,
               "--n_iters", "40", "--resume", ckpt)
     assert r2.returncode == 0, r2.stderr[-2000:]
     assert "resumed from" in r2.stderr
@@ -72,7 +72,7 @@ def test_ba_cli_resume(tiny_bal, tmp_path):
 
 
 def test_slam_cli_end_to_end(tiny_bal):
-    r = _run("gbp_poplar_tpu.drivers.slam",
+    r = _run("gbp_poplar.drivers.slam",
              "--bal_file", tiny_bal, "--iters_between_kfs", "30",
              "--print_every", "30", "--avdepth", "6.0")
     assert r.returncode == 0, r.stderr[-2000:]
@@ -84,7 +84,7 @@ def test_slam_cli_end_to_end(tiny_bal):
 
 def test_ba_cli_polish(tiny_bal, tmp_path):
     traj = str(tmp_path / "pol.txt")
-    r = _run("gbp_poplar_tpu.drivers.ba",
+    r = _run("gbp_poplar.drivers.ba",
              "--bal_file", tiny_bal, "--n_iters", "40",
              "--print_every", "20", "--save_traj", traj, "--polish")
     assert r.returncode == 0, r.stderr[-2000:]
@@ -92,7 +92,7 @@ def test_ba_cli_polish(tiny_bal, tmp_path):
     # polished output is a valid trajectory
     assert np.isfinite(np.loadtxt(traj)).all()
     # --no_polish opts back out to raw message-passing means
-    r2 = _run("gbp_poplar_tpu.drivers.ba",
+    r2 = _run("gbp_poplar.drivers.ba",
               "--bal_file", tiny_bal, "--n_iters", "40",
               "--print_every", "20", "--no_polish")
     assert r2.returncode == 0, r2.stderr[-2000:]
@@ -103,7 +103,7 @@ def test_ba_cli_verbose_streams_beliefs_every_iteration(tiny_bal):
     """--v prints the camera belief means at EVERY iteration (the
     reference streams beliefs to the host and prints them each sweep,
     ba/ba.cpp:1030-1051; here they ride the scan outputs)."""
-    r = _run("gbp_poplar_tpu.drivers.ba",
+    r = _run("gbp_poplar.drivers.ba",
              "--bal_file", tiny_bal, "--n_iters", "12",
              "--print_every", "6", "--no_polish", "--v")
     assert r.returncode == 0, r.stderr[-2000:]
@@ -118,7 +118,7 @@ def test_ba_cli_verbose_streams_beliefs_every_iteration(tiny_bal):
 def test_slam_cli_resume(tiny_bal, tmp_path):
     ckpt = str(tmp_path / "s.npz")
     traj1 = str(tmp_path / "t1.txt")
-    r1 = _run("gbp_poplar_tpu.drivers.slam",
+    r1 = _run("gbp_poplar.drivers.slam",
               "--bal_file", tiny_bal, "--iters_between_kfs", "30",
               "--print_every", "30", "--avdepth", "6.0",
               "--checkpoint", ckpt, "--save_traj", traj1)
@@ -126,7 +126,7 @@ def test_slam_cli_resume(tiny_bal, tmp_path):
     # resume from the final checkpoint: state round-trips losslessly, so the
     # exported trajectory is identical (no further segments run)
     traj2 = str(tmp_path / "t2.txt")
-    r2 = _run("gbp_poplar_tpu.drivers.slam",
+    r2 = _run("gbp_poplar.drivers.slam",
               "--bal_file", tiny_bal, "--iters_between_kfs", "30",
               "--resume", ckpt, "--save_traj", traj2)
     assert r2.returncode == 0, r2.stderr[-2000:]
@@ -134,7 +134,7 @@ def test_slam_cli_resume(tiny_bal, tmp_path):
     np.testing.assert_allclose(np.loadtxt(traj2), np.loadtxt(traj1),
                                rtol=0, atol=0)
     # a mismatched --devices must be rejected, not silently ignored
-    r3 = _run("gbp_poplar_tpu.drivers.slam",
+    r3 = _run("gbp_poplar.drivers.slam",
               "--bal_file", tiny_bal, "--iters_between_kfs", "30",
               "--resume", ckpt, "--devices", "2")
     assert r3.returncode == 2
@@ -142,7 +142,7 @@ def test_slam_cli_resume(tiny_bal, tmp_path):
 
 def test_slam_cli_sharded(tiny_bal, tmp_path):
     ckpt = str(tmp_path / "shard.npz")
-    r = _run("gbp_poplar_tpu.drivers.slam",
+    r = _run("gbp_poplar.drivers.slam",
              "--bal_file", tiny_bal, "--iters_between_kfs", "30",
              "--print_every", "30", "--avdepth", "6.0",
              "--devices", "2", "--checkpoint", ckpt,
@@ -155,7 +155,7 @@ def test_slam_cli_sharded(tiny_bal, tmp_path):
     lines = [ln for ln in r.stdout.splitlines() if ln.startswith("iter")]
     assert lines and all("nan" not in ln.lower() for ln in lines)
     # sharded checkpoint resumes (same --devices) and matches
-    r2 = _run("gbp_poplar_tpu.drivers.slam",
+    r2 = _run("gbp_poplar.drivers.slam",
               "--bal_file", tiny_bal, "--iters_between_kfs", "30",
               "--resume", ckpt, "--devices", "2")
     assert r2.returncode == 0, r2.stderr[-2000:]
@@ -168,7 +168,7 @@ def test_bench_emits_json(tiny_bal):
     env = dict(_ENV, GBP_PLATFORM="cpu", GBP_BENCH_SEQ=tiny_bal,
                GBP_BENCH_SWEEPS="20", GBP_BENCH_GUARD_ITERS="80",
                GBP_BENCH_GUARD_PX="3.0",
-               # the extra fr2robot2 / 1M-edge measurements are TPU-scale
+               # the extra fr2robot2 / 1M-edge measurements are card-scale
                GBP_BENCH_EXTRA="0", GBP_BENCH_SCALE="0")
     r = subprocess.run([sys.executable, "bench.py"], capture_output=True,
                        text=True, env=env, cwd=_REPO, timeout=240)
@@ -178,45 +178,9 @@ def test_bench_emits_json(tiny_bal):
     assert data["value"] > 0 and data["unit"] == "sweeps/s"
 
 
-def test_resume_graph_keeps_derived_structures(tiny_bal, tmp_path):
-    """Resuming must not silently drop the derived accelerator structures
-    (fused-kernel windows, one-hot): checkpoints persist only plain graph
-    arrays, so the driver must keep the freshly BUILT graph when the
-    checkpointed plain arrays match it — and fall back to the checkpoint's
-    graph (with a warning) only on a genuine mismatch."""
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    import jax.numpy as jnp
-
-    from gbp_poplar_tpu.config import GBPConfig
-    from gbp_poplar_tpu.core import build_graph, init_state
-    from gbp_poplar_tpu.drivers import common
-    from gbp_poplar_tpu.utils import checkpoint
-
-    prob = balio.load_bal(tiny_bal)
-    cfg = GBPConfig()
-    built = build_graph(prob, cfg)
-    state = init_state(prob, cfg)
-    path = str(tmp_path / "g.npz")
-    checkpoint.save_checkpoint(path, state, built, step=7, cfg=cfg)
-    _, loaded, _ = checkpoint.load_checkpoint(path)
-    # round-trip drops the BlockedIndex windows (the fused-kernel gate)...
-    assert loaded.cam_win is None and loaded.lmk_win is None
-    assert built.cam_win is not None
-    # ...and resume_graph restores them by keeping the built graph
-    g = common.resume_graph(built, loaded)
-    assert g is built
-    # a genuinely different graph is kept as-is (authoritative)
-    tampered = loaded._replace(
-        cam_idx=jnp.roll(loaded.cam_idx, 1))
-    g2 = common.resume_graph(built, tampered)
-    assert g2 is tampered
-
-
 def test_slam_cli_polish(tiny_bal, tmp_path):
     traj = str(tmp_path / "t.txt")
-    r = _run("gbp_poplar_tpu.drivers.slam",
+    r = _run("gbp_poplar.drivers.slam",
              "--bal_file", tiny_bal, "--iters_between_kfs", "60",
              "--print_every", "30", "--polish", "--save_traj", traj)
     assert r.returncode == 0, r.stderr[-2000:]
@@ -232,7 +196,7 @@ def test_slam_cli_sharded_polish(tiny_bal, tmp_path):
     the global order plus trailing dummies, so the exact-MAP toolchain runs
     at any --devices (reference: full-state round trips, slam.cpp:913-948)."""
     traj = str(tmp_path / "tp.txt")
-    r = _run("gbp_poplar_tpu.drivers.slam",
+    r = _run("gbp_poplar.drivers.slam",
              "--bal_file", tiny_bal, "--iters_between_kfs", "30",
              "--print_every", "30", "--avdepth", "6.0",
              "--devices", "2", "--polish", "--save_traj", traj)

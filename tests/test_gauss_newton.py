@@ -9,16 +9,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gbp_poplar_tpu.config import GBPConfig
-from gbp_poplar_tpu.core import build_graph, init_state, gbp
-from gbp_poplar_tpu.core import gauss_newton as gn
-from gbp_poplar_tpu.utils import balio, priors as priors_lib
+from gbp_poplar.config import GBPConfig
+from gbp_poplar.core import build_graph, init_state, gbp
+from gbp_poplar.core import gauss_newton as gn
+from gbp_poplar.utils import balio, priors as priors_lib
 
 
 def _setup(problem, cfg, dtype=jnp.float64):
-    # GN has no activity mask: build without the GBP graph's edge padding
-    import dataclasses
-    cfg = dataclasses.replace(cfg, edge_pad_multiple=1)
     graph = build_graph(problem, cfg, dtype)
     cam_lam0, lmk_lam0 = priors_lib.prior_lambdas(problem, cfg.meas_var, dtype)
     cam0 = jnp.asarray(problem.cam_means, dtype)
@@ -82,7 +79,7 @@ def test_gn_converges_noise_free():
     problem = balio.synthetic_problem(n_keyframes=6, n_points=60, seed=0,
                                       pixel_noise=0.0)
     # perturb the initialisation so there is something to solve
-    from gbp_poplar_tpu.config import InitConfig
+    from gbp_poplar.config import InitConfig
     noisy = priors_lib.apply_init_noise(
         problem, InitConfig(trans_noise=0.05, rot_noise=1.0,
                             lmk_noise=0.1, seed=3))
@@ -148,7 +145,7 @@ def test_plane_lm_matches_batched(monkeypatch):
     per-edge blocks from ops/planes.linearise, chunked scans) must agree
     with the batched small-E path — forced here by dropping the chunk
     threshold. It is what makes gbp-ba --polish run at the Venice shape,
-    where the batched [E, d, d] layout tile-pads ~28x and OOMs (round 5)."""
+    where the batched [E, d, d] layout runs out of device memory."""
     problem = balio.synthetic_problem(n_keyframes=6, n_points=60, seed=3,
                                       pixel_noise=0.5)
     cfg = GBPConfig()

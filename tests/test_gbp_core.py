@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gbp_poplar_tpu.config import GBPConfig
-from gbp_poplar_tpu.core import build_graph, init_state, gbp
-from gbp_poplar_tpu.ops import planes as pl
-from gbp_poplar_tpu.utils import balio, flags as flags_lib
+from gbp_poplar.config import GBPConfig
+from gbp_poplar.core import build_graph, init_state, gbp
+from gbp_poplar.ops import planes as pl
+from gbp_poplar.utils import balio, flags as flags_lib
 
 
 def _dense_marginal(prob, state, graph):
@@ -65,7 +65,7 @@ def test_tree_gbp_exact_marginal():
     step = jax.jit(lambda s: gbp.gbp_sweep(s, graph, cfg))
     for _ in range(20):
         state = step(state)
-    from gbp_poplar_tpu.utils import analysis
+    from gbp_poplar.utils import analysis
     mu_cam, mu_lmk = analysis.belief_means(state)
     np.testing.assert_allclose(
         np.concatenate([mu_cam.ravel(), mu_lmk.ravel()]), mu_exact,
@@ -226,7 +226,7 @@ def test_relinearise_masked_depth_guard_sidedness(synthetic):
     sweep: with relin_behind_camera=False a linearisation at a
     behind-camera mean is refused (SLAM insertion must not adopt the
     wrong-signed factors the one-sided guard exists to block)."""
-    from gbp_poplar_tpu.ops import lie
+    from gbp_poplar.ops import lie
 
     base = dict(min_depth=0.05)
     cfg_two = GBPConfig(relin_behind_camera=True, **base)

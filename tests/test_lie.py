@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gbp_poplar_tpu.ops import lie
+from gbp_poplar.ops import lie
 
 
 def _np_so3exp(w):

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from gbp_poplar_tpu.ops import linalg
+from gbp_poplar.ops import linalg
 
 
 def _random_spd(rng, n, d, scale=1.0):

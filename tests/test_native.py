@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from gbp_poplar_tpu.utils import balio
+from gbp_poplar.utils import balio
 from tests.conftest import requires_sequences
 
 
 def _native_available():
     try:
-        from gbp_poplar_tpu.native import balio_native
+        from gbp_poplar.native import balio_native
         balio_native._load_lib()
         return True
     except Exception:
@@ -23,7 +23,7 @@ requires_native = pytest.mark.skipif(
 @requires_native
 @requires_sequences
 def test_native_matches_numpy_parser():
-    from gbp_poplar_tpu.native import balio_native
+    from gbp_poplar.native import balio_native
 
     path = balio.find_sequence("fr2robot2")
     a = balio_native.load(path)
@@ -40,7 +40,7 @@ def test_native_matches_numpy_parser():
 
 @requires_native
 def test_native_roundtrip_via_save(tmp_path):
-    from gbp_poplar_tpu.native import balio_native
+    from gbp_poplar.native import balio_native
 
     prob = balio.synthetic_problem(n_keyframes=4, n_points=20, seed=5)
     path = str(tmp_path / "tiny.txt")
@@ -53,7 +53,7 @@ def test_native_roundtrip_via_save(tmp_path):
 
 @requires_native
 def test_native_rejects_garbage(tmp_path):
-    from gbp_poplar_tpu.native import balio_native
+    from gbp_poplar.native import balio_native
 
     path = str(tmp_path / "bad.txt")
     with open(path, "w") as f:

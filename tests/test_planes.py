@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gbp_poplar_tpu.ops import planes as pl
+from gbp_poplar.ops import planes as pl
 
 
 def _spd(rng, n, d):
@@ -80,7 +80,7 @@ def test_inv_sym_from_chol_oracle(rng_):
 
 
 def test_so3_exp_matches_lie(rng_):
-    from gbp_poplar_tpu.ops import lie
+    from gbp_poplar.ops import lie
     w = rng_.normal(0, 1.0, (40, 3)).astype(np.float32)
     w[0] = 0.0                      # small-angle branch
     w[1] = [1e-8, -1e-8, 1e-8]
@@ -93,7 +93,7 @@ def test_so3_exp_matches_lie(rng_):
 
 def test_linearise_matches_dense_projection(rng_):
     """Plane linearisation == ops/projection.linearise_factor (dense)."""
-    from gbp_poplar_tpu.ops import projection
+    from gbp_poplar.ops import projection
     n = 50
     cam = rng_.normal(0, 0.3, (n, 6)).astype(np.float32)
     lmk = (rng_.normal(0, 1, (n, 3)) + [0, 0, 5]).astype(np.float32)

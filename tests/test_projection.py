@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gbp_poplar_tpu.ops import projection
+from gbp_poplar.ops import projection
 
 K = jnp.asarray([[517.3, 0.0, 318.6], [0.0, 516.5, 255.3], [0.0, 0.0, 1.0]],
                 jnp.float32)

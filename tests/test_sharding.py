@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gbp_poplar_tpu.config import GBPConfig
-from gbp_poplar_tpu.core import build_graph, init_state, gbp
-from gbp_poplar_tpu.parallel import (
+from gbp_poplar.config import GBPConfig
+from gbp_poplar.core import build_graph, init_state, gbp
+from gbp_poplar.parallel import (
     make_mesh, make_sharded_solver, pad_edges,
 )
 
@@ -45,8 +45,7 @@ def test_sharded_single_sweep_close(problem, n_devices):
     different order than one global segment_sum)."""
     assert len(jax.devices()) >= n_devices, "conftest should force 8 CPU devices"
     cfg = GBPConfig()
-    # drop the one-hot camera reduction so both sides sum in segment order
-    graph = build_graph(problem, cfg)._replace(cam_onehot=None)
+    graph = build_graph(problem, cfg)
     state = init_state(problem, cfg)
     s1 = gbp.gbp_sweep(gbp.initialise(state, graph, cfg), graph, cfg)
 
@@ -90,9 +89,7 @@ def test_sharded_converges_like_single(problem, n_devices):
 def test_padding_is_inert(problem):
     """Padded inactive edges contribute nothing to beliefs."""
     cfg = GBPConfig()
-    # pad_edges drops the one-hot camera reduction; drop it from the
-    # unpadded graph too so both sides reduce in the same order
-    graph = build_graph(problem, cfg)._replace(cam_onehot=None)
+    graph = build_graph(problem, cfg)
     state = init_state(problem, cfg)
     graph_p, state_p, pad = pad_edges(graph, state, 7)
     assert pad > 0 and graph_p.n_edges % 7 == 0
@@ -126,157 +123,11 @@ def test_sharded_sweep_and_init(problem):
     assert np.isfinite(np.asarray(state.cam_eta)).all()
 
 
-def test_sharded_pallas_on_tpu():
-    """The Pallas sweep kernel must compile and converge inside shard_map
-    (the multi-chip execution path; interpreted off-TPU so CI covers it)."""
-    from gbp_poplar_tpu.utils import balio
-    prob = balio.synthetic_problem(n_keyframes=6, n_points=60, seed=0,
-                                   pixel_noise=0.5)
-    on_tpu = jax.default_backend() == "tpu"
-    cfg = GBPConfig(use_pallas=True if on_tpu else "interpret",
-                    edge_pad_multiple=256, pallas_block_edges=256)
-    mesh = make_mesh(1)
-    solver = make_sharded_solver(mesh, cfg)
-    graph, state = solver.prepare(build_graph(prob, cfg),
-                                  init_state(prob, cfg))
-    final, diag = solver.solve(state, graph, 60)
-    errs = np.asarray(diag.reproj_err)
-    assert np.isfinite(errs).all()
-    assert errs[-1] < errs[0]
-
-
-@pytest.mark.parametrize("n_devices", [2, 4])
-def test_sharded_fused_kernel_path(problem, n_devices):
-    """Multi-chip runs the SAME fused sweep kernel as single-chip (the
-    reference compiles one set of codelets for any --ipus N,
-    ba/ba.cpp:614-649): prepare() must rebuild per-shard windows, the
-    sharded sweep must take the fused path, and one initialise+sweep must
-    match the single-chip fused sweep to fp32 reduction-order noise."""
-    cfg = GBPConfig(use_pallas="interpret")
-    graph = build_graph(problem, cfg)
-    assert graph.cam_win is not None       # single-chip fused available
-    state = init_state(problem, cfg)
-    s1 = gbp.gbp_sweep(gbp.initialise(state, graph, cfg), graph, cfg)
-
-    mesh = make_mesh(n_devices)
-    solver = make_sharded_solver(mesh, cfg)
-    g2, st2 = solver.prepare(build_graph(problem, cfg),
-                             init_state(problem, cfg))
-    # the windows survived sharding -> gbp_sweep takes the fused branch
-    assert g2.cam_win is not None and g2.lmk_win is not None
-    assert g2.cam_win.base.shape[0] % n_devices == 0
-    s2 = solver.sweep(solver.initialise(st2, g2), g2)
-
-    scale = np.abs(np.asarray(s1.cam_eta)).max()
-    np.testing.assert_allclose(
-        np.asarray(s2.cam_eta) / scale, np.asarray(s1.cam_eta) / scale,
-        rtol=0, atol=1e-4)
-    lscale = np.abs(np.asarray(s1.lmk_eta)).max()
-    np.testing.assert_allclose(
-        np.asarray(s2.lmk_eta) / lscale, np.asarray(s1.lmk_eta) / lscale,
-        rtol=0, atol=1e-4)
-    e = problem.n_edges
-    mscale = np.abs(np.asarray(s1.msg_c_eta)).max()
-    np.testing.assert_allclose(
-        np.asarray(s2.msg_c_eta)[:, :e] / mscale,
-        np.asarray(s1.msg_c_eta)[:, :e] / mscale, rtol=0, atol=1e-4)
-
-
-@pytest.mark.parametrize("n_devices", [2, 4])
-def test_map_sharded_fused_kernel_path(problem, n_devices):
-    """Map-partitioned mode also runs the fused kernel per shard; beliefs
-    after initialise + 1 iteration match single-chip (landmark axis is the
-    global order plus trailing dummy padding)."""
-    from gbp_poplar_tpu.parallel import make_map_sharded_solver
-    cfg = GBPConfig(use_pallas="interpret")
-    graph = build_graph(problem, cfg)
-    state = init_state(problem, cfg)
-    _, diag1 = jax.jit(lambda s: gbp.solve(s, graph, cfg, n_iters=1))(state)
-
-    mesh = make_mesh(n_devices)
-    solver = make_map_sharded_solver(mesh, cfg)
-    g2, st2 = solver.prepare(build_graph(problem, cfg),
-                             init_state(problem, cfg))
-    assert g2.cam_win is not None and g2.lmk_win is not None
-    _, diag2 = solver.solve(st2, g2, 1)
-    np.testing.assert_allclose(
-        np.asarray(diag2.reproj_err), np.asarray(diag1.reproj_err),
-        rtol=1e-4, atol=1e-5)
-
-
-def test_stacked_window_invariants(problem):
-    """Every real edge's variable id lies inside its block's window on
-    every shard, for both sharding modes (the structural guarantee the
-    in-kernel one-hot gather/reduce depends on)."""
-    from gbp_poplar_tpu.parallel import partition_by_landmark
-    from gbp_poplar_tpu.parallel.sharding import real_edge_count
-
-    def check(idx, base, w, be, k):
-        idx = np.asarray(idx)
-        base = np.asarray(base)
-        for b in range(len(base)):
-            blk = idx[b * be:(b + 1) * be]
-            if blk.size == 0:
-                continue
-            lo = 0 if k == -1 else base[b]
-            assert blk.min() >= lo and blk.max() < lo + w, (
-                f"block {b}: ids [{blk.min()}, {blk.max()}] outside "
-                f"window [{lo}, {lo + w})")
-
-    cfg = GBPConfig()
-    n = 4
-    graph = build_graph(problem, cfg)
-    state = init_state(problem, cfg)
-
-    # edge-sharded: global order split at shard boundaries
-    g2, _, _ = pad_edges(graph, state, n, cfg)
-    e_loc = g2.n_edges // n
-    real = real_edge_count(g2.cam_idx, g2.lmk_idx)
-    nb = g2.cam_win.base.shape[0] // n
-    be = g2.cam_win.block_edges
-    for s in range(n):
-        sl = slice(s * e_loc, min((s + 1) * e_loc, real))
-        check(np.asarray(g2.cam_idx)[sl],
-              np.asarray(g2.cam_win.base)[s * nb:(s + 1) * nb],
-              g2.cam_win.w, be, g2.cam_win.k)
-        check(np.asarray(g2.lmk_idx)[sl],
-              np.asarray(g2.lmk_win.base)[s * nb:(s + 1) * nb],
-              g2.lmk_win.w, be, g2.lmk_win.k)
-
-    # map-partitioned: block-local landmark ids, replicated cams
-    g3, s3 = partition_by_landmark(graph, state, n, cfg)
-    e_blk = g3.n_edges // n
-    nb3 = g3.lmk_win.base.shape[0] // n
-    be3 = g3.lmk_win.block_edges
-    act = np.asarray(s3.active) > 0
-    for s in range(n):
-        sl = slice(s * e_blk, (s + 1) * e_blk)
-        m = act[sl]
-        li = np.asarray(g3.lmk_idx)[sl][m]
-        ci = np.asarray(g3.cam_idx)[sl][m]
-        if li.size == 0:
-            continue
-        # per-block check needs the in-block position of each active edge
-        pos = np.flatnonzero(m)
-        for b in range(nb3):
-            inb = (pos >= b * be3) & (pos < (b + 1) * be3)
-            if not inb.any():
-                continue
-            lo_l = (0 if g3.lmk_win.k == -1
-                    else np.asarray(g3.lmk_win.base)[s * nb3 + b])
-            lo_c = (0 if g3.cam_win.k == -1
-                    else np.asarray(g3.cam_win.base)[s * nb3 + b])
-            assert li[inb].min() >= lo_l
-            assert li[inb].max() < lo_l + g3.lmk_win.w
-            assert ci[inb].min() >= lo_c
-            assert ci[inb].max() < lo_c + g3.cam_win.w
-
-
 @pytest.mark.parametrize("n_devices", [2, 8])
 def test_map_sharded_converges_like_single(problem, n_devices):
     """Map-partitioned mode (landmark blocks sharded, keyframes boundary):
     same converged quality as the single-device solver."""
-    from gbp_poplar_tpu.parallel import make_map_sharded_solver
+    from gbp_poplar.parallel import make_map_sharded_solver
     cfg = GBPConfig()
     n_iters = 80
     _, diag_s = _solve_single(problem, cfg, n_iters)
@@ -295,7 +146,7 @@ def test_map_sharded_converges_like_single(problem, n_devices):
 
 def test_partition_by_landmark_bookkeeping(problem):
     """Each shard owns a contiguous landmark block + exactly its edges."""
-    from gbp_poplar_tpu.parallel import partition_by_landmark
+    from gbp_poplar.parallel import partition_by_landmark
     cfg = GBPConfig()
     graph = build_graph(problem, cfg)
     state = init_state(problem, cfg)
@@ -322,8 +173,8 @@ def test_partition_by_landmark_bookkeeping(problem):
 
 def test_map_sharded_slam(problem):
     """Incremental keyframe insertion under the map-partitioned sharding."""
-    from gbp_poplar_tpu.parallel import make_map_sharded_solver
-    from gbp_poplar_tpu.utils import flags as flags_lib
+    from gbp_poplar.parallel import make_map_sharded_solver
+    from gbp_poplar.utils import flags as flags_lib
     cfg = GBPConfig()
     graph = build_graph(problem, cfg)
     flags = flags_lib.create_flags(problem, cfg.steps)
@@ -340,43 +191,3 @@ def test_map_sharded_slam(problem):
             st2 = solver.insert_keyframe(st2, g2, k + 1, 6.0)
     final = last[-10:].mean()
     assert np.isfinite(final) and final < 1.5
-
-
-def test_rebuild_partitioned_windows(problem):
-    """A map-sharded checkpoint drops the derived window structures; the
-    resume path must re-derive per-shard stacked windows IDENTICAL to the
-    ones partition_by_landmark built (drivers/slam.py --resume under
-    --devices N must keep the fused sweep path)."""
-    from gbp_poplar_tpu.parallel import partition_by_landmark
-    from gbp_poplar_tpu.parallel.map_sharding import (
-        rebuild_partitioned_windows,
-    )
-
-    def roundtrip(prob, n):
-        cfg = GBPConfig()
-        graph = build_graph(prob, cfg)
-        state = init_state(prob, cfg)
-        pg, _ = partition_by_landmark(graph, state, n, cfg)
-        assert pg.cam_win is not None and pg.lmk_win is not None
-        stripped = pg._replace(cam_win=None, lmk_win=None)
-        rg = rebuild_partitioned_windows(stripped, n, cfg)
-        for f in ("cam_win", "lmk_win"):
-            a, b = getattr(pg, f), getattr(rg, f)
-            assert b is not None
-            assert (a.w, a.block_edges, a.stride, a.k) == \
-                   (b.w, b.block_edges, b.stride, b.k)
-            np.testing.assert_array_equal(np.asarray(a.base),
-                                          np.asarray(b.base))
-            np.testing.assert_array_equal(np.asarray(a.visited),
-                                          np.asarray(b.visited))
-        return pg
-
-    roundtrip(problem, 4)
-
-    # per-shard landmark block larger than the whole-table limit: the
-    # rebuilt windows must be genuine grid windows, not a fallback
-    from gbp_poplar_tpu.utils import balio
-    big = balio.synthetic_problem_large(n_keyframes=40, n_points=9000,
-                                        obs_per_lmk=4, seed=1)
-    pg = roundtrip(big, 2)
-    assert pg.lmk_win.k == 0

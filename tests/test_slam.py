@@ -4,10 +4,10 @@ import jax
 import numpy as np
 import pytest
 
-from gbp_poplar_tpu.config import GBPConfig
-from gbp_poplar_tpu.core import build_graph, init_state, gbp, slam
-from gbp_poplar_tpu.ops import planes as pl
-from gbp_poplar_tpu.utils import balio, flags as flags_lib
+from gbp_poplar.config import GBPConfig
+from gbp_poplar.core import build_graph, init_state, gbp, slam
+from gbp_poplar.ops import planes as pl
+from gbp_poplar.utils import balio, flags as flags_lib
 
 from conftest import requires_sequences
 
@@ -139,7 +139,7 @@ def test_slam_fr1desk_stability():
     re-triggered desk's Huber storms in batch mode. Reduced cadence
     (150 it/kf vs the reference's 700, ba/slam.cpp:414-417) keeps this
     CPU-feasible (~6 min); the full-cadence desk-SLAM accuracy row is
-    measured on TPU in docs/VALIDATION.md."""
+    measured in docs/VALIDATION.md."""
     problem = balio.load_bal("fr1desk")
     # the slam driver's default schedule (drivers/slam.py)
     cfg = GBPConfig(relin_every_iter=True, eta_damping=0.7,

@@ -9,9 +9,9 @@ import jax
 import numpy as np
 import pytest
 
-from gbp_poplar_tpu.config import GBPConfig
-from gbp_poplar_tpu.core import build_graph, gauss_newton, gbp, init_state
-from gbp_poplar_tpu.utils import balio, evaluation
+from gbp_poplar.config import GBPConfig
+from gbp_poplar.core import build_graph, gauss_newton, gbp, init_state
+from gbp_poplar.utils import balio, evaluation
 
 from conftest import requires_sequences
 
@@ -40,7 +40,7 @@ def test_fr2robot2_reference_schedule_matches_gn():
 
 
 def pl_means(state):
-    from gbp_poplar_tpu.utils import analysis
+    from gbp_poplar.utils import analysis
     cam_mu, _ = analysis.belief_means(state)
     return cam_mu
 
@@ -77,7 +77,7 @@ def test_fr1desk_default_schedule_polishes_to_map():
     mechanism rather than betting on rounding; docs/VALIDATION.md."""
     import jax.numpy as jnp
 
-    from gbp_poplar_tpu.drivers.ba import _polish_problem
+    from gbp_poplar.drivers.ba import _polish_problem
 
     prob = balio.load_bal("fr1desk")
     cfg = GBPConfig(coarse_groups=16)       # the ba-driver defaults
@@ -98,7 +98,7 @@ def test_fr1desk_default_schedule_polishes_to_map():
     assert errs[transient:].max() < 4.0, errs[transient:].max()
 
     res_gn = gauss_newton.solve_problem(prob, cfg, n_lm_iters=25)
-    from gbp_poplar_tpu.utils import analysis
+    from gbp_poplar.utils import analysis
     cam_mu, lmk_mu = analysis.belief_means(final)
     res_pol = gauss_newton.solve_lm(
         jnp.asarray(cam_mu), jnp.asarray(lmk_mu),
@@ -118,7 +118,7 @@ def test_fr1desk_lazy_lambda_damped_converges():
     schedule + lambda_damping must converge HERE, in the env that kills
     the undamped run."""
     cfg = GBPConfig(relin_drift_threshold=0.0, accel_every=0,
-                    use_pallas=False, lambda_damping=True)
+                    lambda_damping=True)
     problem = balio.load_bal("fr1desk")
     graph = build_graph(problem, cfg)
     state = init_state(problem, cfg)

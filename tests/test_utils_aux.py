@@ -8,9 +8,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gbp_poplar_tpu.config import GBPConfig
-from gbp_poplar_tpu.core import build_graph, init_state, gbp
-from gbp_poplar_tpu.utils import analysis, checkpoint, evaluation
+from gbp_poplar.config import GBPConfig
+from gbp_poplar.core import build_graph, init_state, gbp
+from gbp_poplar.utils import analysis, checkpoint, evaluation
 
 
 def test_checkpoint_roundtrip_and_resume(synthetic, tmp_path):
@@ -98,7 +98,7 @@ def test_kl_divergence_properties():
 def test_recenter_priors(synthetic):
     """recenter_priors == the reference's update_eta semantics: prior means
     move to the given values, strengths unchanged."""
-    from gbp_poplar_tpu.ops import planes as pl
+    from gbp_poplar.ops import planes as pl
 
     cfg = GBPConfig()
     graph = build_graph(synthetic, cfg)
@@ -118,7 +118,7 @@ def test_recenter_priors(synthetic):
 
 
 def test_debug_dump_edge(synthetic):
-    from gbp_poplar_tpu.utils import debug
+    from gbp_poplar.utils import debug
     cfg = GBPConfig()
     graph = build_graph(synthetic, cfg)
     state = gbp.initialise(init_state(synthetic, cfg), graph, cfg)
@@ -135,7 +135,7 @@ def test_bad_associations_excluded(synthetic):
     """The reference's bad_associations skip list (ba/util.cpp:100):
     excluded edges must not contribute to either evaluation path, and
     the two paths must agree on the exclusion."""
-    from gbp_poplar_tpu.core.factor_graph import bad_edge_mask
+    from gbp_poplar.core.factor_graph import bad_edge_mask
 
     cfg = GBPConfig()
     graph = build_graph(synthetic, cfg)
@@ -143,7 +143,7 @@ def test_bad_associations_excluded(synthetic):
     state = gbp.gbp_sweep(state, graph, cfg)
 
     bad_ids = [0, 7, synthetic.n_edges - 1]
-    mask = bad_edge_mask(synthetic, bad_ids, cfg)
+    mask = bad_edge_mask(synthetic, bad_ids)
     assert mask.shape[0] == graph.n_edges and mask.sum() == len(bad_ids)
 
     err_all, cost_all = map(float, gbp.reprojection_error(state, graph))
@@ -171,7 +171,7 @@ def test_bad_associations_excluded(synthetic):
 
     import pytest
     with pytest.raises(ValueError):
-        bad_edge_mask(synthetic, [synthetic.n_edges], cfg)
+        bad_edge_mask(synthetic, [synthetic.n_edges])
 
 
 @pytest.mark.slow
@@ -182,7 +182,7 @@ def test_checkpoint_venice_scale(tmp_path):
     scale by test_checkpoint_roundtrip_and_resume; this exercises the IO
     path — np.savez chunking, the .tmp/rename dance, >2 GB array entries —
     at the scale the round-4 capacity work validated the solver at)."""
-    from gbp_poplar_tpu.utils import balio
+    from gbp_poplar.utils import balio
 
     prob = balio.synthetic_problem_large(1778, 994000, 5)
     cfg = GBPConfig()
